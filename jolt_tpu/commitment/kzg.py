@@ -8,7 +8,7 @@
 * commit = device Pippenger MSM over the SRS prefix.
 * open(B, u): the quotient q = (B - B(u)) / (X - u) is computed WITHOUT a
   sequential synthetic-division scan: q[j] = u^{-(j+1)} * suffix_j+1(b_i u^i),
-  i.e. two power tables + a log-depth suffix sum — dense TPU ops.
+  i.e. two power tables + a log-depth suffix sum — dense device ops.
 * verify: host pairing check e(C - v*g - u*W, g2) * e(W, beta_g2)^-1 == 1.
 """
 from __future__ import annotations
@@ -71,25 +71,22 @@ def _fixed_base_table(base: G1Affine, c: int = 8, windows: int = 32):
 
 @partial(jax.jit, static_argnums=())
 def _srs_points(tx, ty, tinf, digits):
-    """Gather fixed-base table entries and tree-sum the 32 windows.
+    """Gather fixed-base table entries and sum the 32 windows.
 
     tx/ty: [L, W, 2^c] table coords; tinf: [W, 2^c]; digits: [W, N].
-    Returns Jacobian (X, Y, Z) of shape [L, N].
-    """
-    W = digits.shape[0]
+    Returns Jacobian (X, Y, Z) of shape [L, N].  The windows fold in
+    sequence under lax.scan: one jac_add body to compile (an unrolled
+    tree compiles W - 1 of them) for the same W - 1 adds."""
     gx = jnp.take_along_axis(tx, digits[None, :, :], axis=2)   # [L, W, N]
     gy = jnp.take_along_axis(ty, digits[None, :, :], axis=2)
     ginf = jnp.take_along_axis(tinf, digits, axis=1)           # [W, N]
     one = fd.ones(cd.FQ, ginf.shape)
     gz = jnp.where(ginf[None], jnp.zeros_like(one), one)
-    P = (gx, gy, gz)
-    w = W
-    while w > 1:
-        half = w // 2
-        P = cd.jac_add(tuple(t[:, :half] for t in P),
-                       tuple(t[:, half:2 * half] for t in P))
-        w = half
-    return tuple(t[:, 0] for t in P)
+    win = tuple(jnp.moveaxis(t, 1, 0) for t in (gx, gy, gz))   # [W, L, N]
+    acc, _ = jax.lax.scan(lambda p, q: (cd.jac_add(p, q), None),
+                          tuple(t[0] for t in win),
+                          tuple(t[1:] for t in win))
+    return acc
 
 
 def _srs_cache_path(n: int, seed: int) -> str | None:
@@ -245,7 +242,7 @@ def kzg_commit_grand_product(pk: KZGProverKey, coeffs_mont: jnp.ndarray
     """CommitMode::GrandProduct [FORK] (kzg.rs:137-144, 223-256): ~93% of
     grand-product leaf coefficients are 1, so commit g_products[k] plus the
     MSM of the (coeff - 1) residual.  Identical commitment bytes; on CPU it
-    skips most bucket adds, on TPU it zeroes most MSM digits."""
+    skips most bucket adds, on the device it zeroes most MSM digits."""
     n = coeffs_mont.shape[-1]
     if n & (n - 1):
         return kzg_commit(pk, coeffs_mont)

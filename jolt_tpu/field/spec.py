@@ -75,79 +75,6 @@ class FieldSpec:
         return isinstance(other, FieldSpec) and self.p == other.p
 
 
-# ---------------------------------------------------------------------------
-# 8-bit convolution matrices for launch-constant multipliers (host-side)
-# ---------------------------------------------------------------------------
-# Multiplying by a value known at kernel-launch time (REDC constants N'/p,
-# Fiat-Shamir challenges, batching coefficients) is a linear map of the
-# other operand's 8-bit chunks; these numpy builders produce the tiny conv
-# matrices the Pallas kernels contract with in ONE exact bf16 MXU pass
-# (entries < 2^8, f32-accumulated columns < 2^21).  Rows are ordered
-# [even-weight chunks ++ odd-weight chunks] so the kernel recombines to
-# 16-bit limbs with a contiguous half-split.
-
-def _chunks8(limbs16) -> list[int]:
-    out = []
-    for v in limbs16:
-        out += [int(v) & 0xFF, (int(v) >> 8) & 0xFF]
-    return out
-
-
-def conv_matrix8(limbs16, out_chunks: int) -> "np.ndarray":
-    """f32 [out_chunks, 2*len(limbs16)] with M[k, n] = chunk8[k - n]."""
-    import numpy as np
-    c8 = np.asarray(_chunks8(limbs16), dtype=np.float32)
-    k = np.arange(out_chunks)[:, None]
-    n = np.arange(2 * len(limbs16))[None, :]
-    idx = k - n
-    M = np.where((idx >= 0) & (idx < c8.size), c8[np.clip(idx, 0, c8.size - 1)],
-                 np.float32(0))
-    return np.concatenate([M[0::2], M[1::2]], axis=0).astype(np.float32)
-
-
-@functools.cache
-def redc_matrices(spec: "FieldSpec"):
-    """(M_N' [2L, 2L] mod-R-truncated, M_p [4L, 2L]) conv matrices."""
-    mnp = conv_matrix8(spec.nprime_limbs, 2 * NUM_LIMBS)
-    mp = conv_matrix8(spec.p_limbs, 4 * NUM_LIMBS)
-    return mnp, mp
-
-
-@functools.cache
-def redc_matrix_raw(spec: "FieldSpec") -> "np.ndarray":
-    """f32 [2L, 3L]: N' conv matrix over UNCARRIED product columns.
-
-    Montgomery's m = T*N' mod R only needs T mod R, and with RAW
-    16-bit-weighted columns t_0..t_32 (t_k < 2^24, as the collector matmul
-    emits them) T mod 2^256 = sum_{k<16} t_k*2^(16k) mod 2^256 — still
-    LINEAR in the 8-bit chunks of the low 16 columns.  This matrix maps
-    input row n = 3k+j (chunk j of column k, weight 2^(16k+8j)) to the
-    mod-R-truncated chunk rows of T*N', so REDC can start straight from the
-    collector output with NO 33-row carry chain first (the old pipeline's
-    single largest VPU cost).  Entries < 2^8 (bf16-exact), column sums
-    < 48*2^16 < 2^22 (f32-exact single MXU pass).  Output rows are ordered
-    [evens ++ odds] to match _fold16.  Chunks with weight >= 2^256
-    (j=2 of k=15) truncate to zero rows automatically."""
-    npc = _chunks8(spec.nprime_limbs)
-    M = np.zeros((2 * NUM_LIMBS, 3 * NUM_LIMBS), dtype=np.float32)
-    for k in range(NUM_LIMBS):
-        for j in range(3):
-            w = 2 * k + j                 # 8-bit weight offset of this row
-            for c in range(2 * NUM_LIMBS):
-                d = c - w
-                if 0 <= d < len(npc):
-                    M[c, 3 * k + j] = npc[d]
-    perm = np.concatenate([np.arange(0, 2 * NUM_LIMBS, 2),
-                           np.arange(1, 2 * NUM_LIMBS, 2)])
-    return M[perm]
-
-
-def scalar_mul_matrix(spec: "FieldSpec", value: int) -> "np.ndarray":
-    """[4L, 2L] conv matrix of a field element (CALLER passes the
-    Montgomery-form integer for Montgomery-domain kernels)."""
-    return conv_matrix8(int_to_limbs(value % spec.p), 4 * NUM_LIMBS)
-
-
 # BN254 scalar field Fr (the proof-system field; reference field/ark.rs)
 FR_MODULUS = 21888242871839275222246405745257275088548364400416034343698204186575808495617
 # BN254 base field Fq (G1/G2 coordinates; used by the MSM/curve kernels)

@@ -6,7 +6,7 @@ Reference: lasso/surge.rs.  Proves that N lookups into a decomposable table
   2. primary sumcheck:  claim = sum_x eq(r, x) * g(E_0(x), ..., E_{m-1}(x))
   3. offline memory checking of the E reads against the subtables
 
-TPU-native witness generation is fully vectorized: counter polynomials via
+Witness generation is fully vectorized: counter polynomials via
 argsort cumcount (no per-op loops), subtable gathers as numpy indexing, and
 fingerprint leaves as one fused device kernel over [limbs, 2m, n].
 """

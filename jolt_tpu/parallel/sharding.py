@@ -21,8 +21,8 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
 
 from ..field import FieldSpec, fr_spec
 from ..field import device as fd
@@ -71,7 +71,7 @@ def sharded_gp_round(mesh: Mesh, spec: FieldSpec, l: jnp.ndarray,
                   P(None, axis), P(None)),
         out_specs=(P(None, None), P(axis, None, None), P(axis, None, None),
                    P(None, None)),
-        check_rep=False)
+        check_vma=False)
     return jax.jit(fn)(l, r, eq, coeffs, r_chal)
 
 
@@ -157,7 +157,7 @@ def sharded_msm_windows(mesh: Mesh, points_jac, scalar_limbs: jnp.ndarray,
         step, mesh=mesh,
         in_specs=(P(None, axis), P(None, axis), P(None, axis), P(None, axis)),
         out_specs=(P(None, None), P(None, None), P(None, None)),
-        check_rep=False)
+        check_vma=False)
     return jax.jit(fn)(*points_jac, scalar_limbs)
 
 
@@ -226,7 +226,7 @@ def sharded_msm_bitplane(mesh: Mesh, points_jac, scalars_mont: jnp.ndarray,
         in_specs=(P(None, axis), P(None, axis), P(None, axis),
                   P(None, axis)),
         out_specs=(P(None, None), P(None, None), P(None, None)),
-        check_rep=False)
+        check_vma=False)
     sx, sy, sz = jax.jit(fn)(*pts, scl)
     sums = cd.jacobian_to_host(sx, sy, sz)
     return cd._horner_bits(sums).to_affine()

@@ -8,7 +8,7 @@ GKR base layers (QUARK_HYBRID_LAYER_DEPTH=4, grand_product_quarks.rs:34).
 Not wired into the Jolt VM path (quark_proof is None in production,
 grand_product.rs:37-41) — bench/test parity component.
 
-TPU shape: the product tree is built with the same fused pairwise-product
+Device shape: the product tree is built with the same fused pairwise-product
 kernel as the dense GP; f(1,·), f(·,0), f(·,1) are stride slices of the
 concatenated [v ‖ tree] tensor; the sumcheck RLC is folded into the
 polynomials up front (A = Σ rᵢ gᵢ, uᵢ = rᵢ·f0ᵢ) so one cached comb kernel

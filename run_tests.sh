@@ -1,5 +1,5 @@
 #!/bin/bash
-# Sequential per-file test runner with progressive timing (1-core box).
+# Sequential per-file CPU test runner with progressive timing.
 #
 # Each file runs in its OWN pytest process and is retried once on a
 # non-pytest exit (e.g. the jax 0.9.0 persistent-cache writer segfault,
@@ -11,17 +11,11 @@ TMPOUT=$(mktemp)
 overall=0
 for f in $(ls tests/test_*.py); do
   start=$(date +%s)
-  # mesh/sharding files need 8 virtual devices; everything else runs
-  # single-device and shares the CLI compile cache (conftest.py).
-  case "$f" in
-    *test_sharding*) export JOLT_TEST_DEVICES=8 ;;
-    *) export JOLT_TEST_DEVICES=1 ;;
-  esac
-  timeout 7200 python -m pytest "$f" -q -m "not slow" > "$TMPOUT" 2>&1
+  JAX_PLATFORMS=cpu timeout 7200 python -m pytest "$f" -q -m "not slow" > "$TMPOUT" 2>&1
   rc=$?
   if [ $rc -ge 128 ]; then
     echo "[retry after signal $((rc-128)), cache writes off] $f" >> "$LOG"
-    JOLT_TEST_NO_CACHE_WRITE=1 timeout 7200 \
+    JAX_PLATFORMS=cpu JOLT_TEST_NO_CACHE_WRITE=1 timeout 7200 \
         python -m pytest "$f" -q -m "not slow" > "$TMPOUT" 2>&1
     rc=$?
   fi

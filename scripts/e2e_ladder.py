@@ -1,9 +1,9 @@
-"""The sha2-chain time-vs-size ladder (VERDICT r4 item 1; reference
+"""The sha2-chain time-vs-size ladder (reference
 headline bench.rs:212-246 runs iters=1000 to trace ~2^22).
 
 Usage:  python scripts/e2e_ladder.py [iters ...]   (default: 4 16 64)
 Each rung proves+verifies sha2-chain(iters) on the default backend and
-prints one JSON line; results go into PERF.md / BENCH notes.
+prints one JSON line; results go into PERF.md.
 """
 import json
 import os

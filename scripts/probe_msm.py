@@ -1,4 +1,4 @@
-"""Probe: batch bitplane-MSM throughput on the TPU at bench-like shapes.
+"""Probe: batch bitplane-MSM throughput on the device at bench-like shapes.
 
 Usage: python scripts/probe_msm.py [J] [log2n] [bits]
 """

@@ -123,7 +123,7 @@ def test_masked_device_rounds_transcript_parity(monkeypatch):
 
 def test_masked_device_fs_rounds_transcript_parity(monkeypatch):
     """Same as above with the device Fiat-Shamir chain enabled (the
-    production TPU path: fs_cubic_round_jit + masked evals/bind)."""
+    production GPU path: fs_cubic_round_jit + masked evals/bind)."""
     spec = fr_spec()
     B, n = 2, 16
     leaves_ints = [[RNG.randrange(spec.p) for _ in range(n)]

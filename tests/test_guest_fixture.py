@@ -1,4 +1,4 @@
-"""Frozen guest-ELF regression fixture (VERDICT r3 item 8).
+"""Frozen guest-ELF regression fixture.
 
 The reference feeds cargo-built guest ELFs through its tracer
 (jolt-core/src/host/mod.rs:100-214); this environment has no Rust
